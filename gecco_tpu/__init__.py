@@ -1,10 +1,10 @@
-"""gecco-tpu: a TPU-native biosynthetic gene cluster detection framework.
+"""gecco-tpu: an accelerator-native biosynthetic gene cluster detection framework.
 
 A from-scratch reimplementation of the capabilities of zellerlab/GECCO
-(see ``/root/reference``) designed for TPU hardware: the profile-HMM
-domain search and the linear-chain CRF decoding run as batched JAX/XLA
-(and Pallas) kernels rather than wrapping native CPU engines
-(pyhmmer/HMMER3, python-crfsuite, pyrodigal/Prodigal).
+(see ``/root/reference``) for accelerators: the profile-HMM domain
+search and the linear-chain CRF decoding run as batched JAX/XLA (and,
+for the SSV filter on a GPU, Pallas) kernels rather than wrapping native
+CPU engines (pyhmmer/HMMER3, python-crfsuite, pyrodigal/Prodigal).
 
 Pipeline (reference: ``gecco/__init__.py:1-9``, ``README.md:7-9``):
 

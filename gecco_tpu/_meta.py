@@ -85,24 +85,22 @@ def zopen(path: Union[str, "os.PathLike[str]", BinaryIO]) -> Iterator[BinaryIO]:
         yield file
 
 
-def enable_jax_compilation_cache(directory: Union[str, None] = None) -> None:
+#: Compile cache used when ``JAX_COMPILATION_CACHE_DIR`` is not set: a
+#: fixed path inside the checkout (listed in ``.gitignore``).
+JAX_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def enable_jax_compilation_cache() -> None:
     """Point JAX at a persistent compilation cache directory.
 
-    First-compile latency of the Pallas/XLA kernels is tens of seconds
-    per bucket shape on TPU; the cache makes every later process reuse
-    them.  Safe to call repeatedly; a no-op if the config was already
-    set by the user.
+    Each search bucket shape compiles once per process; the cache makes
+    later processes reuse them.  ``JAX_COMPILATION_CACHE_DIR``, when
+    set, is JAX's own setting and is left alone; otherwise the cache
+    lives at :data:`JAX_CACHE_DIR`.  Safe to call repeatedly.
     """
     import jax
 
-    if directory is None:
-        directory = os.environ.get(
-            "GECCO_TPU_JAX_CACHE",
-            os.path.join(os.path.expanduser("~"), ".cache", "gecco_tpu", "jax"),
-        )
-    try:
-        if jax.config.jax_compilation_cache_dir is None:
-            jax.config.update("jax_compilation_cache_dir", str(directory))
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    if jax.config.jax_compilation_cache_dir is None:
+        jax.config.update("jax_compilation_cache_dir", JAX_CACHE_DIR)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

@@ -37,7 +37,7 @@ def configure_parser(
 ) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog=program,
-        description="Biosynthetic Gene Cluster prediction with Conditional Random Fields (TPU-native).",
+        description="Biosynthetic Gene Cluster prediction with Conditional Random Fields (accelerator-native).",
     )
     parser.add_argument("-V", "--version", action="version", version=f"{program} {version}")
     # top-level verbosity combines with the subcommand's own flags, so both

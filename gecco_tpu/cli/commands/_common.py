@@ -435,7 +435,7 @@ def annotate_domains(
     logger, genes: List, *,
     hmm_paths: List, default_hmms: Iterable, whitelist=None,
     disentangle: bool = False, jobs: int = 0, bit_cutoffs=None,
-    backend: str = "auto", devices=None,
+    devices=None,
     e_filter=None, p_filter=None,
 ) -> List:
     from ...hmm import ProfileHMMAnnotator
@@ -455,7 +455,7 @@ def annotate_domains(
     for hmm in hmms:
         logger.info("Starting", f"annotation with {hmm.id} v{hmm.version}", level=2)
         genes = ProfileHMMAnnotator(
-            hmm, jobs, whitelist, backend=backend, devices=devices,
+            hmm, jobs, whitelist, devices=devices,
         ).run(genes, bit_cutoffs=bit_cutoffs)
         logger.success("Finished", f"annotation with {hmm.id} v{hmm.version}", level=2)
 

@@ -94,10 +94,6 @@ def group_annotation(parser, defaults: Dict[str, object]) -> None:
     group.add_argument("--disentangle", action="store_true",
                        default=defaults.get("--disentangle", False),
                        help="Keep only the most significant domain among overlapping annotations.")
-    group.add_argument("--backend", choices=("auto", "pallas", "xla"),
-                       default=defaults.get("--backend", "auto"),
-                       help="Device engine for the profile-HMM search "
-                            "(auto: Pallas kernels on TPU, XLA elsewhere).")
     group.add_argument("--devices", type=_devices_value,
                        default=defaults.get("--devices", None),
                        help="Shard the search batch over local devices: "

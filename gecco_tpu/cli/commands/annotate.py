@@ -44,7 +44,7 @@ def run(args, logger, crf_type, classifier_type, default_hmms) -> int:
         hmm_paths=args.hmms, default_hmms=default_hmms(),
         whitelist=None, disentangle=args.disentangle, jobs=args.jobs,
         bit_cutoffs=args.bit_cutoffs, e_filter=args.e_filter, p_filter=args.p_filter,
-        backend=args.backend, devices=args.devices,
+        devices=args.devices,
     )
     _common.write_genes_table(logger, genes, genome=args.genome, output_dir=args.output_dir)
     _common.write_feature_table(logger, genes, genome=args.genome, output_dir=args.output_dir)

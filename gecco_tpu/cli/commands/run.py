@@ -61,7 +61,7 @@ def run(args, logger, crf_type, classifier_type, default_hmms) -> int:
         hmm_paths=args.hmms, default_hmms=default_hmms(),
         whitelist=whitelist, disentangle=args.disentangle, jobs=args.jobs,
         bit_cutoffs=args.bit_cutoffs, e_filter=args.e_filter, p_filter=args.p_filter,
-        backend=args.backend, devices=args.devices,
+        devices=args.devices,
     )
 
     genes = _common.predict_probabilities(

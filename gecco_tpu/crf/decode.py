@@ -8,7 +8,7 @@ reference wraps via ``model.predict_marginals_single``,
 
 * ``marginals_numpy`` — float64 host path mirroring CRFsuite's
   ``crf1d_context`` scaling order for numeric parity;
-* ``marginals_jax``   — batched, jit-compiled TPU path (one ``lax.scan``
+* ``marginals_jax``   — batched, jit-compiled device path (one ``lax.scan``
   forward, one backward, over a ``[B, W, L]`` window batch).
 
 The sliding-window + element-wise max-pooling orchestration lives in

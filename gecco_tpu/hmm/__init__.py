@@ -6,8 +6,8 @@ Behavioral reference: ``/root/reference/gecco/hmmer/__init__.py`` —
 annotator converting reported domains to ``gecco.model.Domain`` with
 alignment coordinates and InterPro/GO metadata (:94-196), and
 ``embedded_hmms`` discovering ``*.ini`` resources (:199-222).  The
-search itself runs on our own TPU pipeline (``gecco_tpu.hmm.pipeline``)
-instead of HMMER3.
+search itself runs on our own accelerator pipeline
+(``gecco_tpu.hmm.pipeline``) instead of HMMER3.
 """
 
 import abc
@@ -20,6 +20,7 @@ from typing import Any, Callable, Container, Dict, Iterable, Iterator, List, Opt
 from .._meta import UniversalContainer, zopen
 from ..interpro import InterPro
 from ..model import Domain, Gene
+from ..profiling import TIMER
 from .io import encode_sequence, parse_hmmer3
 from .pipeline import SearchPipeline
 from .profile import SearchProfile, configure_local
@@ -72,7 +73,7 @@ class DomainAnnotator(metaclass=abc.ABCMeta):
 
 
 class ProfileHMMAnnotator(DomainAnnotator):
-    """Annotates genes by searching the library with the TPU pipeline."""
+    """Annotates genes by searching the library with ``SearchPipeline``."""
 
     def __init__(
         self,
@@ -80,12 +81,10 @@ class ProfileHMMAnnotator(DomainAnnotator):
         cpus: Optional[int] = None,
         whitelist: Optional[Container[str]] = None,
         use_accelerator: bool = True,
-        backend: str = "auto",
         devices=None,
     ) -> None:
         super().__init__(hmm, cpus=cpus, whitelist=whitelist)
         self.use_accelerator = use_accelerator
-        self.backend = backend
         self.devices = devices
         self._profiles: Optional[List[SearchProfile]] = None
 
@@ -114,11 +113,13 @@ class ProfileHMMAnnotator(DomainAnnotator):
             domZ=self.hmm.size,
             bit_cutoffs=bit_cutoffs,
             use_accelerator=self.use_accelerator,
-            backend=self.backend,
             devices=self.devices,
         )
         interpro = InterPro.load()
-        for hit in pipeline.search(sequences):
+        hits = pipeline.search(sequences)
+        for stage, seconds in pipeline.stage_seconds.items():
+            TIMER.records.append((f"search-{stage}", seconds))
+        for hit in hits:
             raw_acc = hit.profile.accession or hit.profile.name
             accession = self.hmm.relabel(raw_acc)
             entry = interpro.lookup(accession)

@@ -1,14 +1,17 @@
 """Batched profile-HMM engines for the accelerator (JAX/XLA).
 
-TPU-native layout: the whole profile bank is packed as ``[P, Mp]``
-tensors (profiles × padded nodes, nodes on the 128-lane axis) and the
-dynamic program scans over *sequence positions*, so the per-step
-emission lookup is a **scalar-indexed slice** ``e_odds[x_i]`` of a
-``[21, P, Mp]`` tensor — no per-lane gather, which TPUs lack.  The
-delete chain (a first-order linear recurrence along the node axis) runs
-as an exact ``associative_scan``; probability-space values are rescaled
-per step (HMMER's sparse-rescaling trick) so everything stays in f32
-range.
+The whole profile bank is packed as ``[P, Mp]`` tensors (profiles ×
+padded nodes) and the dynamic program scans over *sequence positions*,
+so the per-step emission lookup is a slice ``e_odds[x_i]`` of a
+``[21, P, Mp]`` tensor.  The delete chain (a first-order linear
+recurrence along the node axis) runs as an exact ``associative_scan``;
+probability-space values are rescaled per step (HMMER's sparse-rescaling
+trick) so everything stays in f32 range.
+
+Each call is split into sequence chunks whose DP plane stays under
+``PLANE_BYTES``; sequences are independent, so the split changes no
+score.  On a GPU the SSV filter runs the Pallas kernel of
+``gecco_tpu.hmm.ssv`` instead (``ssv_scores``).
 
 This replaces the SIMD MSV/Viterbi/Forward filter stack of HMMER3 that
 the reference uses through pyhmmer (``SURVEY.md`` §2.2); the numeric
@@ -17,17 +20,21 @@ contract is tested against ``gecco_tpu.hmm.engine``.
 
 import functools
 import math
-from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy
 
 from .io import AMINO_ALPHABET
 from .profile import SearchProfile, length_model
 
-__all__ = ["ProfileBank", "forward_scores", "viterbi_scores", "msv_scores", "ssv_scores"]
+__all__ = [
+    "ProfileBank", "bias_logratio", "forward_scores", "viterbi_scores",
+    "msv_scores", "ssv_scores", "ssv_scores_xla",
+]
 
 _K = 21  # 20 amino acids + degenerate
+PLANE_BYTES = 1 << 30  # per-dispatch bound on one [S, P, Mp] f32 DP plane
 
 
 def _round_up(x: int, m: int) -> int:
@@ -44,6 +51,8 @@ class ProfileBank:
       ``tmm/tim/tdm`` feed node ``k+1`` from ``k``; ``tmi/tii`` stay at
       ``k``; ``tmd/tdd`` feed the delete chain; ``bm`` is local entry.
     * ``lengths`` — real model length per profile.
+    * ``device_tables`` — per-device copies that device engines build
+      once from this bank (``gecco_tpu.hmm.ssv``).
     """
 
     e_odds: "numpy.ndarray"
@@ -65,6 +74,8 @@ class ProfileBank:
     msv_lambda: "numpy.ndarray"  # [P]
     vit_mu: "numpy.ndarray"      # [P] VITERBI Gumbel mu (bits)
     vit_lambda: "numpy.ndarray"  # [P]
+    device_tables: Dict = field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def P(self) -> int:
@@ -173,6 +184,19 @@ class ProfileBank:
         )
 
 
+def bias_logratio(bank: ProfileBank) -> "numpy.ndarray":
+    """``log(compo_p[a] / bg[a])`` per profile — the composition filter.
+
+    ``compo_p`` is the profile's mean match emission distribution (the
+    analog of HMMER's ``COMPO`` line); derived from the bank's odds
+    tensor: ``mean_k e_odds[a, p, k] = compo_p[a] / bg[a]``.
+    Returns ``[20, P]`` float32.
+    """
+    sums = bank.e_odds[:20].sum(axis=2)            # [20, P]
+    ratio = sums / numpy.maximum(bank.lengths, 1)[None, :]
+    return numpy.log(numpy.maximum(ratio, 1e-30)).astype(numpy.float32)
+
+
 def _bank_tuple(bank: ProfileBank):
     return (
         bank.e_odds, bank.tmm, bank.tim, bank.tdm, bank.tmi, bank.tii,
@@ -187,8 +211,7 @@ def _jit_forward(P: int, Mp: int, Lp: int, viterbi: bool = False):
 
     # max-plus (Viterbi) vs sum-product (Forward) semiring — the uniform
     # per-step rescaling is valid for both (positive scaling commutes
-    # with max as well as with +); same parameterization as the Pallas
-    # kernels (gecco_tpu.hmm.kernels._pallas_fwd)
+    # with max as well as with +)
     add = jnp.maximum if viterbi else (lambda a, b: a + b)
 
     def one_sequence(args, x, mask, loop, move):
@@ -282,6 +305,31 @@ def _padded_batch(sequences, pad_to):
     return xs, masks, loops, moves
 
 
+def _score(jitted, bank: ProfileBank, sequences, pad_to) -> "numpy.ndarray":
+    """Run one XLA engine over ``sequences``, ``[S, P]`` nats.
+
+    The batch goes out in chunks whose ``[chunk, P, Mp]`` DP plane fits
+    ``PLANE_BYTES``: a genome-sized bucket against a Pfam-sized bank
+    would otherwise carry several 6.5 GB planes (plus the scan's
+    temporaries) in one dispatch.
+    """
+    import jax.numpy as jnp
+
+    if len(sequences) == 0:
+        return numpy.zeros((0, bank.P), dtype=numpy.float32)
+    xs, masks, loops, moves = _padded_batch(sequences, pad_to)
+    fn = jitted(bank.P, bank.Mp, xs.shape[1])
+    args = tuple(jnp.asarray(a) for a in _bank_tuple(bank))
+    chunk = max(1, PLANE_BYTES // (4 * bank.P * bank.Mp))
+    return numpy.concatenate([
+        numpy.asarray(fn(args, jnp.asarray(xs[s:s + chunk]),
+                         jnp.asarray(masks[s:s + chunk]),
+                         jnp.asarray(loops[s:s + chunk]),
+                         jnp.asarray(moves[s:s + chunk])))
+        for s in range(0, len(xs), chunk)
+    ])
+
+
 def forward_scores(
     bank: ProfileBank,
     sequences: Sequence["numpy.ndarray"],
@@ -292,14 +340,7 @@ def forward_scores(
     Returns ``[S, P]``; each score is comparable to
     ``engine.forward(...).score`` for the same pair (f32 tolerance).
     """
-    import jax.numpy as jnp
-
-    if len(sequences) == 0:
-        return numpy.zeros((0, bank.P), dtype=numpy.float32)
-    xs, masks, loops, moves = _padded_batch(sequences, pad_to)
-    fn = _jit_forward(bank.P, bank.Mp, xs.shape[1])
-    out = fn(_bank_tuple(bank), jnp.asarray(xs), jnp.asarray(masks), jnp.asarray(loops), jnp.asarray(moves))
-    return numpy.asarray(out)
+    return _score(_jit_forward, bank, sequences, pad_to)
 
 
 def viterbi_scores(
@@ -313,14 +354,8 @@ def viterbi_scores(
     ``forward_scores`` in the max-plus semiring.  Per-pair values match
     ``engine.viterbi_score`` at f32 tolerance.
     """
-    import jax.numpy as jnp
-
-    if len(sequences) == 0:
-        return numpy.zeros((0, bank.P), dtype=numpy.float32)
-    xs, masks, loops, moves = _padded_batch(sequences, pad_to)
-    fn = _jit_forward(bank.P, bank.Mp, xs.shape[1], viterbi=True)
-    out = fn(_bank_tuple(bank), jnp.asarray(xs), jnp.asarray(masks), jnp.asarray(loops), jnp.asarray(moves))
-    return numpy.asarray(out)
+    return _score(functools.partial(_jit_forward, viterbi=True),
+                  bank, sequences, pad_to)
 
 
 @functools.lru_cache(maxsize=None)
@@ -406,6 +441,19 @@ def _jit_ssv(P: int, Mp: int, Lp: int):
     return jax.jit(lambda args, xs, masks, loops, moves: batched(args, xs, masks, loops, moves))
 
 
+def ssv_scores_xla(
+    bank: ProfileBank,
+    sequences: Sequence["numpy.ndarray"],
+    pad_to: Optional[int] = None,
+) -> "numpy.ndarray":
+    """SSV filter log-odds scores (nats) on the XLA engine, ``[S, P]``.
+
+    Single-segment variant of ``msv_scores`` (no J state) — the stage-1
+    filter of HMMER ≥3.1; matches ``engine.ssv_score`` per pair.
+    """
+    return _score(_jit_ssv, bank, sequences, pad_to)
+
+
 def ssv_scores(
     bank: ProfileBank,
     sequences: Sequence["numpy.ndarray"],
@@ -413,29 +461,16 @@ def ssv_scores(
 ) -> "numpy.ndarray":
     """SSV filter log-odds scores (nats) for every pair, ``[S, P]``.
 
-    Single-segment variant of ``msv_scores`` (no J state) — the stage-1
-    filter of HMMER ≥3.1; matches ``engine.ssv_score`` per pair.
+    The one place the filter engine is chosen: the Pallas kernel of
+    ``gecco_tpu.hmm.ssv`` on a GPU, the XLA engine elsewhere.
     """
-    import jax.numpy as jnp
+    import jax
 
-    S = len(sequences)
-    if S == 0:
-        return numpy.zeros((0, bank.P), dtype=numpy.float32)
-    Lp = pad_to or _round_up(max(len(x) for x in sequences), 32)
-    xs = numpy.zeros((S, Lp), dtype=numpy.int32)
-    masks = numpy.zeros((S, Lp), dtype=bool)
-    loops = numpy.zeros(S, dtype=numpy.float32)
-    moves = numpy.zeros(S, dtype=numpy.float32)
-    for i, x in enumerate(sequences):
-        L = len(x)
-        xs[i, :L] = x
-        masks[i, :L] = True
-        loop, move = length_model(L)
-        loops[i] = math.exp(loop)
-        moves[i] = math.exp(move)
-    fn = _jit_ssv(bank.P, bank.Mp, Lp)
-    out = fn(_bank_tuple(bank), jnp.asarray(xs), jnp.asarray(masks), jnp.asarray(loops), jnp.asarray(moves))
-    return numpy.asarray(out)
+    if jax.default_backend() == "gpu":
+        from .ssv import ssv_scores_pallas
+
+        return ssv_scores_pallas(bank, sequences, pad_to)
+    return ssv_scores_xla(bank, sequences, pad_to)
 
 
 def msv_scores(
@@ -449,23 +484,4 @@ def msv_scores(
     same value as the log-space max DP because rescaling is monotonic
     and uniform across states within a step.
     """
-    import jax.numpy as jnp
-
-    S = len(sequences)
-    if S == 0:
-        return numpy.zeros((0, bank.P), dtype=numpy.float32)
-    Lp = pad_to or _round_up(max(len(x) for x in sequences), 32)
-    xs = numpy.zeros((S, Lp), dtype=numpy.int32)
-    masks = numpy.zeros((S, Lp), dtype=bool)
-    loops = numpy.zeros(S, dtype=numpy.float32)
-    moves = numpy.zeros(S, dtype=numpy.float32)
-    for i, x in enumerate(sequences):
-        L = len(x)
-        xs[i, :L] = x
-        masks[i, :L] = True
-        loop, move = length_model(L)
-        loops[i] = math.exp(loop)
-        moves[i] = math.exp(move)
-    fn = _jit_msv(bank.P, bank.Mp, Lp)
-    out = fn(_bank_tuple(bank), jnp.asarray(xs), jnp.asarray(masks), jnp.asarray(loops), jnp.asarray(moves))
-    return numpy.asarray(out)
+    return _score(_jit_msv, bank, sequences, pad_to)

@@ -20,13 +20,12 @@ Method (after HMMER's ``p7_Calibrate``):
   survival function ``P(S ≥ x) = exp(-λ (x - tau))`` to the empirical
   ``tailp`` (default 4%) quantile.
 
-Scoring runs on whatever backend the kernels resolve to (Pallas on
-TPU, the XLA batch engines elsewhere); a full 2,766-profile bank
-calibrates in seconds on one chip.
+Scoring runs on the engines of ``gecco_tpu.hmm.batch`` (the SSV
+filter on the GPU kernel where there is one).
 """
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Sequence
 
 import numpy
 
@@ -44,7 +43,6 @@ def calibrate(
     L: int = 256,
     seed: int = 0,
     tailp: float = 0.04,
-    backend: Optional[str] = None,
 ) -> List[SearchProfile]:
     """Fit MSV/VITERBI/FORWARD stats in place; returns ``profiles``.
 
@@ -65,23 +63,9 @@ def calibrate(
         rng.choice(20, size=L, p=p_bg).astype(numpy.int32) for _ in range(n)
     ]
     bank = ProfileBank.build(profiles)
-    if backend is None:
-        try:
-            import jax
-
-            backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-        except Exception:  # pragma: no cover
-            backend = "xla"
-    if backend == "pallas":
-        from .kernels import Bucketed, ForwardKernel, SSVKernel, ViterbiKernel
-
-        ssv = Bucketed(SSVKernel, bank, pow2=True)(seqs)
-        vit = Bucketed(ViterbiKernel, bank, pow2=True)(seqs)
-        fwd = Bucketed(ForwardKernel, bank, pow2=True)(seqs)
-    else:
-        ssv = numpy.asarray(ssv_scores(bank, seqs))
-        vit = numpy.asarray(viterbi_scores(bank, seqs))
-        fwd = numpy.asarray(forward_scores(bank, seqs))
+    ssv = ssv_scores(bank, seqs)
+    vit = viterbi_scores(bank, seqs)
+    fwd = forward_scores(bank, seqs)
     null = null1_score(L)
     bits_ssv = (ssv.astype(numpy.float64) - null) / LOG2   # [n, P]
     bits_vit = (vit.astype(numpy.float64) - null) / LOG2

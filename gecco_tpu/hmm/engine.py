@@ -6,7 +6,8 @@ Forward, Backward, Viterbi and MSV over the local multihit "implicit
 probabilistic model", posterior decoding, heuristic domain-envelope
 definition, null2 bias correction, and optimal-accuracy alignment
 coordinates.  This module is the *numerical ground truth* the batched
-TPU engines (``gecco_tpu.hmm.batch``) are tested against; it follows the
+device engines (``gecco_tpu.hmm.batch``, ``gecco_tpu.hmm.ssv``) are
+tested against; it follows the
 published HMMER3 recurrences (generic_fwdback.c / p7_domaindef.c
 structure) re-derived from the model definition.
 """

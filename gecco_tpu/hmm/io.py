@@ -4,7 +4,7 @@ package's packed ``.npz`` profile-bank format.
 The reference consumes binary ``.h3m`` files through pyhmmer
 (``/root/reference/gecco/hmmer/__init__.py:119-129``); our build parses
 the portable HMMER3 *text* format from scratch and packs profile banks
-into padded tensors for the TPU search pipeline
+into padded tensors for the device search pipeline
 (``gecco_tpu.hmm.pipeline``).  All probability values in the file are
 negative natural logs; ``*`` denotes probability zero.
 """

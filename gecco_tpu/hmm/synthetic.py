@@ -113,12 +113,16 @@ def pfam_shaped_lengths(count: int, seed: int = 0) -> "numpy.ndarray":
     bulk 50-400, a thin tail reaching past 2,000 (e.g. PF12252 at 2207).
     A clipped log-normal with ``mu=log(140), sigma=0.72`` reproduces
     that shape closely enough for kernel benchmarking (bucket fill,
-    VMEM budget, padded-width mix) — unlike a uniform [40, 250] draw,
-    which never exercises the wide buckets at all.
+    padded-width mix) — unlike a uniform [40, 250] draw, which never
+    exercises the wide buckets at all.  The longest draw is pinned at
+    the 2,200-node ceiling, so every bank of this shape reaches the
+    widest padded width a Pfam-sized bank has.
     """
     rng = numpy.random.default_rng(seed)
     lengths = rng.lognormal(mean=numpy.log(140.0), sigma=0.72, size=count)
-    return numpy.clip(lengths, 25, 2200).astype(int)
+    lengths = numpy.clip(lengths, 25, 2200).astype(int)
+    lengths[numpy.argmax(lengths)] = 2200
+    return lengths
 
 
 def pfam_shaped_profiles(count: int, seed: int = 0) -> List[SearchProfile]:

@@ -1,7 +1,7 @@
 """Multi-chip scale-out: mesh construction, sharded search, merged results.
 
 The reference is single-node thread-parallel only (``SURVEY.md`` §2.3);
-this package adds the TPU-native equivalents:
+this package adds the accelerator equivalents:
 
 * **data parallelism** — contig/protein batches sharded over the
   ``data`` mesh axis (the workhorse; each chip runs the full stack on
@@ -31,6 +31,15 @@ __all__ = [
 ]
 
 
+def _host_worker_init(initializer, initargs) -> None:
+    """Hold a host worker process to the CPU, then run ``initializer``."""
+    import os
+
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if initializer is not None:
+        initializer(*initargs)
+
+
 def pipelined_map(host_fn, device_fn, items, processes: bool = False,
                   initializer=None, initargs=()):
     """Two-stage host/device software pipeline over a work list.
@@ -51,7 +60,9 @@ def pipelined_map(host_fn, device_fn, items, processes: bool = False,
     thread-based overlap degrades to the serial sum — a subprocess
     overlaps fully.  ``host_fn``/``items`` must then be picklable;
     ``initializer(*initargs)`` runs once in the worker (build finders,
-    banks, …) and must NOT touch the accelerator.
+    banks, …).  The worker is held to the CPU (``JAX_PLATFORMS=cpu`` is
+    set before anything in it can import JAX), so it never opens a
+    second client on the card.
     """
     items = list(items)
     if not items:
@@ -64,7 +75,7 @@ def pipelined_map(host_fn, device_fn, items, processes: bool = False,
         ctx = multiprocessing.get_context("spawn")
         pool = ProcessPoolExecutor(
             max_workers=1, mp_context=ctx,
-            initializer=initializer, initargs=initargs,
+            initializer=_host_worker_init, initargs=(initializer, initargs),
         )
     else:
         from concurrent.futures import ThreadPoolExecutor

@@ -2,8 +2,8 @@
 
 The reference is strictly single-process (SURVEY §2.3 — verified:
 thread pools only, no MPI/NCCL/Gloo); its docs recommend splitting
-inputs by hand and merging tables (``docs/training.rst:84-88``).  The
-TPU build makes that a first-class mode:
+inputs by hand and merging tables (``docs/training.rst:84-88``).  This
+build makes that a first-class mode:
 
 * :func:`initialize` — `jax.distributed` bootstrap for multi-host
   slices (no-op for a single process);

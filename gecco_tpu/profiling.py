@@ -2,14 +2,14 @@
 
 The reference ships no tracing or profiling at all — its only
 instrumentation is rich progress bars driven by per-stage callbacks
-(``/root/reference/gecco/cli/_log.py:96-108``; SURVEY §5.1).  The TPU
+(``/root/reference/gecco/cli/_log.py:96-108``; SURVEY §5.1).  This
 build adds two first-class observability primitives:
 
 * :class:`StageTimer` — wall-clock accounting of every pipeline stage,
   reported by the CLI at ``-vv``;
 * :func:`xla_trace` — wraps a command in a ``jax.profiler`` trace
   (``--profile DIR``) producing a TensorBoard/Perfetto-compatible
-  XPlane dump of every XLA/Pallas kernel launched on the chip.
+  XPlane dump of every XLA/Pallas kernel launched on the device.
 
 Both keep the reference's callback-style progress contract intact: the
 timer is orthogonal to the per-stage ``progress`` callbacks threaded

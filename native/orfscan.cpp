@@ -1,7 +1,7 @@
 // Native core of the de-novo gene finder (gecco_tpu.orf.scan).
 //
 // The reference gets its gene-calling speed from Prodigal's C engine via
-// pyrodigal (SURVEY.md §2.2); our TPU build keeps the model/selection
+// pyrodigal (SURVEY.md §2.2); this build keeps the model/selection
 // logic in Python/numpy and implements the per-nucleotide inner loops
 // here: six-frame ORF candidate enumeration and in-frame hexamer
 // scoring.  Bound via ctypes (gecco_tpu/orf/_native.py) with a pure

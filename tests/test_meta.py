@@ -52,3 +52,26 @@ def test_zopen_filelike():
     raw = io.BytesIO(gzip.compress(b"stream"))
     with zopen(raw) as f:
         assert f.read() == b"stream"
+
+
+def test_compile_cache_defaults_to_checkout():
+    """Without ``JAX_COMPILATION_CACHE_DIR`` the compile cache lives at
+    ``<checkout>/.jax_cache``; a directory JAX already has is kept."""
+    import os
+
+    import jax
+
+    from gecco_tpu import _meta
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert _meta.JAX_CACHE_DIR == os.path.join(root, ".jax_cache")
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        jax.config.update("jax_compilation_cache_dir", None)
+        _meta.enable_jax_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == _meta.JAX_CACHE_DIR
+        jax.config.update("jax_compilation_cache_dir", str(root))
+        _meta.enable_jax_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == str(root)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

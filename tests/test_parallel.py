@@ -1,7 +1,7 @@
 """Multi-device sharding tests (8 virtual CPU devices, see conftest).
 
 The reference has no distributed tests at all (``SURVEY.md`` §4); these
-validate the TPU build's scale-out layer: mesh construction, bank/model
+validate this build's scale-out layer: mesh construction, bank/model
 sharding of the annotate stage, the data-parallel CRF train step, and
 the deterministic shard-invariant cluster merge.
 """
@@ -32,22 +32,16 @@ def test_pipeline_multi_device_matches_single():
     """The PRODUCTION SearchPipeline sharded over 8 local devices
     (``devices="all"``) returns the same hits, scores, and domains as
     one device — one process saturating a multi-chip host."""
+    from gecco_tpu.hmm.calibrate import calibrate
     from gecco_tpu.hmm.pipeline import SearchPipeline
+    from gecco_tpu.hmm.synthetic import plant_domain
 
-    from conftest import reference_path
-    from gecco_tpu import seqio
-    from gecco_tpu.hmm.io import encode_sequence, parse_hmmer3
-    from gecco_tpu.hmm.profile import configure_local
-
-    profiles = [
-        configure_local(p)
-        for p in parse_hmmer3(
-            reference_path("test_hmmer", "data", "minipfam.hmm"))
-    ]
+    profiles = synthetic_profiles(6, min_length=40, max_length=90, seed=21)
+    calibrate(profiles, n=64, L=128, seed=5)
+    rng = numpy.random.default_rng(3)
     fixture = [
-        encode_sequence(str(r.seq))
-        for r in seqio.parse(
-            reference_path("test_hmmer", "data", "proteins.faa"))
+        plant_domain(x, profiles[i], rng, divergence=0.1)
+        for i, x in enumerate(synthetic_proteins(3, mean_length=200, seed=4))
     ]
     # 12 sequences over 8 devices: real hits on several shards
     seqs = [fixture[i % len(fixture)] for i in range(12)]
@@ -101,6 +95,22 @@ def test_pipelined_map_threads_and_processes():
                              initializer=_pm_init, initargs=(10,)))
     assert got == [2 * v for v in expected]
     assert list(pipelined_map(_pm_host, lambda v: v, [])) == []
+
+
+def _pm_platforms(_item):
+    import os
+
+    return os.environ.get("JAX_PLATFORMS")
+
+
+def test_pipelined_map_worker_process_held_to_cpu(monkeypatch):
+    """A spawned host worker never opens the accelerator: it runs with
+    ``JAX_PLATFORMS=cpu`` whatever the parent's setting."""
+    from gecco_tpu.parallel import pipelined_map
+
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+    got = list(pipelined_map(_pm_platforms, lambda v: v, [0], processes=True))
+    assert got == ["cpu"]
 
 
 def test_make_mesh_shapes():
